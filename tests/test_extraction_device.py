@@ -1,7 +1,7 @@
 """Device extraction kernels vs the numpy golden paths.
 
-The jittable feature kernels run here on the jax CPU backend; real-TPU
-behavior is the same program via XLA.  Integer-derived features (areas,
+The jittable feature kernels run here on the jax CPU backend; on the GPU
+they are the same program via XLA.  Integer-derived features (areas,
 bboxes, labels, annotations) must be exact; float reductions carry f32
 vs f64 tolerance.
 """
@@ -454,11 +454,8 @@ class TestGrayOperandCache:
 
 
 def test_mass_batch_non_pow2_matches_singles(scene):
-    """Non-power-of-two same-shape batches pad the stacked dispatch to the
-    next power of two: XLA:TPU crashes the worker on the vmapped hull
-    kernel at b=3/5/6/7 with busy label content (b=1/2/4/8 are fine), so
-    the stack ships padded and the padded outputs are dropped.  On the CPU
-    harness this asserts the padding/slicing keeps batch == singles."""
+    """Non-power-of-two same-shape batches run as one stacked dispatch with
+    no padding; batch results equal the single-frame results."""
 
     _, bgr = scene
     frames = [bgr.copy(), (255 - bgr).copy(), np.roll(bgr, 7, axis=1).copy()]

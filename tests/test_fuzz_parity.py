@@ -5,8 +5,8 @@ The fixed parity suites pin one or two parameter points per op; this
 sweep draws parameters from each op's declared schema ranges
 (``ops/schema.py``, mirroring ``ui/control_metadata.py`` in the
 reference) and random shapes — the class of coverage that catches
-content/geometry-conditional bugs (the vmapped-hull TPU fault was
-batch-shape + content dependent, invisible to every fixed case).
+content/geometry-conditional bugs (batch-shape + content dependent
+faults are invisible to every fixed case).
 
 Deterministic: seeded rng, fixed case count, so CI never flakes.
 Stochastic/iterative families (clustering, snake, grabcut, mean shift)

@@ -116,46 +116,36 @@ def test_batched_run_matches(gray):
             np.testing.assert_array_equal(got, want)
 
 
-def test_histogram256_lane_grouped_parity():
-    """Grouped CSA (8 tiles per vreg row) must bincount-match for odd tile
-    counts and non-aligned pixel counts — run through the ACTUAL kernel in
-    interpreter mode so the pad_px / pad_tiles / row-padding corrections
-    are exercised (the CPU fallback would otherwise bypass them)."""
+@pytest.mark.parametrize(
+    "n,px", [(3, 1024), (8, 2048), (11, 1000), (16, 8192), (9, 12345)]
+)
+def test_histogram256_parity(n, px):
+    """Scatter-add histograms (vmapped over tiles) bincount-match for odd
+    tile counts and pixel counts off any power of two."""
 
+    import jax
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.pallas_kernels import histogram256_lane_grouped
+    from yamimageprocessor_tpu.ops.lutops import histogram256_j
 
-    rng = np.random.default_rng(21)
-    for n, px in ((3, 1024), (8, 2048), (11, 1000), (16, 8192), (9, 12345)):
-        tiles = rng.integers(0, 256, (n, px), dtype=np.uint8)
-        got = np.asarray(
-            histogram256_lane_grouped(jnp.asarray(tiles), interpret=True)
-        )
-        want = np.stack(
-            [np.bincount(tiles[i], minlength=256) for i in range(n)]
-        )
-        assert (got == want).all(), (n, px)
-        # the production non-interpret entry (CPU fallback off-TPU)
-        fb = np.asarray(histogram256_lane_grouped(jnp.asarray(tiles)))
-        assert (fb == want).all(), (n, px)
+    tiles = np.random.default_rng(21).integers(0, 256, (n, px), dtype=np.uint8)
+    got = np.asarray(jax.vmap(histogram256_j)(jnp.asarray(tiles)))
+    want = np.stack([np.bincount(tiles[i], minlength=256) for i in range(n)])
+    assert (got == want).all()
 
 
-def test_histogram256_swar_decode_adversarial():
-    """SWAR-decode edge cases through the real kernel (interpret mode):
-    constant-255 tiles drive plane bit 31 (the arithmetic-shift masking)
-    and single-bin counts of 65536 > 2^15 drive the hi-half mask — both
-    would corrupt silently if either mask regressed."""
+def test_histogram256_full_bin_counts():
+    """Constant tiles put all 65,536 pixels in one bin — counts past 2^15
+    and 2^16-1 must come back exact for the extreme levels."""
 
+    import jax
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.pallas_kernels import histogram256_lane_grouped
+    from yamimageprocessor_tpu.ops.lutops import histogram256_j
 
     for value in (0, 128, 200, 255):
         tiles = np.full((9, 256 * 256), value, np.uint8)
-        got = np.asarray(
-            histogram256_lane_grouped(jnp.asarray(tiles), interpret=True)
-        )
+        got = np.asarray(jax.vmap(histogram256_j)(jnp.asarray(tiles)))
         want = np.zeros((9, 256), np.int64)
         want[:, value] = 256 * 256
         assert (got == want).all(), value

@@ -169,7 +169,6 @@ def test_sharded_labeling_beyond_512_components(mesh):
 
     import jax
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from yamimageprocessor_tpu.ops.labeling import label_np
@@ -184,12 +183,12 @@ def test_sharded_labeling_beyond_512_components(mesh):
     assert dense.max() > 512
 
     axis = mesh.axis_names[0]
-    fn = shard_map(
+    fn = jax.shard_map(
         lambda block: label_sharded_j(block, axis),
         mesh=mesh,
         in_specs=P(axis),
         out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     dev = jax.device_put(jnp.asarray(fg), NamedSharding(mesh, P(axis)))
     out = np.asarray(jax.jit(fn)(dev))

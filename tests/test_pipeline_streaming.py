@@ -464,7 +464,7 @@ def _global_chain(beta=4.0):
 def test_source_stack_cache_warm_rerun_skips_reads():
     """Cross-call device-resident source cache: a re-run over the same
     source content (token) and tile geometry performs ZERO source reads and
-    still matches dense bit-for-bit — the TPU analogue of the reference's
+    still matches dense bit-for-bit — the device analogue of the reference's
     content-addressed source memoization
     (processing/pipeline_cache.py:256-282)."""
 

@@ -293,73 +293,39 @@ def test_clahe_matches_cv2_padded(shape):
     )
 
 
-def test_clahe_blend_pallas_interpret_parity():
-    """The TPU fast-path blend kernel (half-tile select trees) is
-    bit-identical to the 256-level sweep blend — checked via pallas
-    interpret mode on the CPU harness."""
+def test_clahe_gather_blend_parity():
+    """The device CLAHE (scatter-add tile histograms + four-corner gather
+    blend in the golden's f32 term order) is bit-identical to the numpy
+    golden on a grid-aligned frame."""
 
     import jax.numpy as jnp
 
     from yamimageprocessor_tpu.ops import clahe as CL
-    from yamimageprocessor_tpu.ops.clahe_pallas import (
-        clahe_blend_pallas,
-        clahe_tile_histograms,
-    )
 
     rng = np.random.default_rng(9)
     img = rng.integers(0, 256, (128, 128), dtype=np.uint8)
-    gh = gw = 8
-    work = jnp.asarray(img)
-    hist = clahe_tile_histograms(work, (gh, gw)).reshape(gh, gw, 256)
-    luts = CL._clip_and_lut_j(hist, 2.0, (128 // gh) * (128 // gw))
-    interp = CL._interp_weights(128, 128, (gh, gw))
-    out = np.asarray(
-        clahe_blend_pallas(work, luts, interp, (gh, gw), interpret=True)
-    )
-    ref = np.asarray(CL.clahe_j(work, clip_limit=2.0, grid=(gh, gw)))
-    assert (out == ref).all()
+    out = np.asarray(CL.clahe_j(jnp.asarray(img), clip_limit=2.0, grid=(8, 8)))
+    assert (out == CL.clahe_np(img, 2.0, (8, 8))).all()
 
 
-def test_clahe_blend_pallas_batched_interpret_parity():
-    """The batched blend (leading frame grid dim, per-frame packed tables)
-    must match the single-frame kernel frame-by-frame — this is the path
-    the vmapped chain takes on TPU."""
+def test_clahe_gather_blend_batched_parity():
+    """vmapped CLAHE (the batched chain's path: per-frame histograms and
+    tables) matches the golden frame by frame."""
 
+    import jax
     import jax.numpy as jnp
 
     from yamimageprocessor_tpu.ops import clahe as CL
-    from yamimageprocessor_tpu.ops.clahe_pallas import (
-        clahe_blend_pallas,
-        clahe_tile_histograms,
-    )
 
     rng = np.random.default_rng(10)
-    n, h, w = 3, 128, 128
-    gh = gw = 4
-    frames = jnp.asarray(rng.integers(0, 256, (n, h, w), dtype=np.uint8))
-    area = (h // gh) * (w // gw)
-    interp = CL._interp_weights(h, w, (gh, gw))
-    hists = jnp.stack(
-        [
-            clahe_tile_histograms(frames[i], (gh, gw)).reshape(gh, gw, 256)
-            for i in range(n)
-        ]
-    )
-    luts = CL._clip_and_lut_j(hists, 2.0, area)
+    frames = rng.integers(0, 256, (3, 128, 128), dtype=np.uint8)
     batched = np.asarray(
-        clahe_blend_pallas(frames, luts, interp, (gh, gw), interpret=True)
+        jax.vmap(lambda f: CL.clahe_j(f, clip_limit=2.0, grid=(4, 4)))(
+            jnp.asarray(frames)
+        )
     )
-    for i in range(n):
-        single = np.asarray(
-            clahe_blend_pallas(
-                frames[i], luts[i], interp, (gh, gw), interpret=True
-            )
-        )
-        assert (batched[i] == single).all()
-        ref = np.asarray(
-            CL.clahe_j(frames[i], clip_limit=2.0, grid=(gh, gw))
-        )
-        assert (batched[i] == ref).all()
+    for i in range(frames.shape[0]):
+        assert (batched[i] == CL.clahe_np(frames[i], 2.0, (4, 4))).all()
 
 
 def test_clahe_color(bgr):
@@ -372,7 +338,7 @@ def test_clahe_color(bgr):
 
 
 def test_histeq_odd_shapes_bit_exact(rng):
-    """Odd shapes exercise the pallas histogram block-overhang padding and
+    """Odd shapes exercise the scatter-add histogram on ragged sizes and
     the correctly-rounded f32 scale divide (device == golden everywhere)."""
     import jax.numpy as jnp
 
@@ -386,81 +352,57 @@ def test_histeq_odd_shapes_bit_exact(rng):
         assert (device == golden).all(), shape
 
 
-def test_batched_pallas_wrappers_cpu_fallback(rng):
-    """lut_apply_batch / histogram256_batch route to the XLA fallbacks off-TPU
-    and stay bit-exact with numpy for per-frame tables."""
+def test_batched_lut_and_histogram_parity(rng):
+    """vmapped apply_lut_j / histogram256_j with per-frame tables stay
+    bit-exact with numpy (the batched chain's LUT path)."""
+    import jax
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.pallas_kernels import (
-        histogram256_batch,
-        lut_apply_batch,
-    )
+    from yamimageprocessor_tpu.ops.lutops import apply_lut_j, histogram256_j
 
     imgs = rng.integers(0, 256, (3, 37, 53), dtype=np.uint8)
     luts = rng.integers(0, 256, (3, 256), dtype=np.uint8)
-    out = np.asarray(lut_apply_batch(jnp.asarray(imgs), jnp.asarray(luts)))
+    out = np.asarray(jax.vmap(apply_lut_j)(jnp.asarray(imgs), jnp.asarray(luts)))
     ref = np.stack([luts[i][imgs[i]] for i in range(3)])
     assert (out == ref).all()
-    h = np.asarray(histogram256_batch(jnp.asarray(imgs)))
+    h = np.asarray(jax.vmap(histogram256_j)(jnp.asarray(imgs)))
     href = np.stack([np.bincount(imgs[i].ravel(), minlength=256) for i in range(3)])
     assert (h == href).all()
 
 
-def test_sepconv_pallas_interpret_parity():
-    """The TPU separable-conv kernel (lane-roll x-taps + sublane y-taps)
-    matches the XLA twin bit-for-bit, including edge rows/cols (reflect101)
-    and non-128-multiple widths."""
-
+def _gaussian_pair(imgs):
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.ops import filters as F
-    from yamimageprocessor_tpu.ops._kernels import gaussian_taps
-    from yamimageprocessor_tpu.ops.sepconv_pallas import sep_filter_u8_pallas
+    impl = get_impl("preprocessing.noise_reduction")
+    params = {"method": "Gaussian", "ksize": 5}
+    static, dyn = impl.split_params(params, imgs.shape[1:])
+    dyn_j = {k: jnp.asarray(v) for k, v in dyn.items()}
+    for img in imgs:
+        device = np.asarray(impl.device_fn(jnp.asarray(img), dyn_j, **static))
+        yield device, impl.golden_fn(img, **params)
+
+
+def test_gaussian_gray_parity():
+    """The device separable Gaussian (uint8 gray, reflect101 borders,
+    widths off any power of two) stays within the float-filter class of
+    the golden: <= 1 LSB."""
 
     rng = np.random.default_rng(13)
-    taps = jnp.asarray(gaussian_taps(5), jnp.float32)
     for shape in [(64, 128), (100, 130), (48, 256)]:
         imgs = rng.integers(0, 256, (2,) + shape, dtype=np.uint8)
-        ref = np.stack(
-            [
-                np.asarray(
-                    F.to_uint8_j(F.sep_filter_j(jnp.asarray(f), taps, taps))
-                )
-                for f in imgs
-            ]
-        )
-        out = np.asarray(
-            sep_filter_u8_pallas(jnp.asarray(imgs), taps, taps, interpret=True)
-        )
-        assert (out == ref).all(), shape
+        for device, golden in _gaussian_pair(imgs):
+            assert np.abs(device.astype(int) - golden.astype(int)).max() <= 1, shape
 
 
-def test_sepconv_pallas_channel_planes_parity():
-    """Channel frames route channels onto the kernel's frame grid
-    (sep_filter_u8_planes): bit parity with the XLA 3-channel path."""
-
-    import jax.numpy as jnp
-
-    from yamimageprocessor_tpu.ops import filters as F
-    from yamimageprocessor_tpu.ops._kernels import gaussian_taps
-    from yamimageprocessor_tpu.ops.sepconv_pallas import sep_filter_u8_planes
+def test_gaussian_channel_planes_parity():
+    """Channel frames filter each plane independently: <= 1 LSB of the
+    golden on 3- and 4-channel frames."""
 
     rng = np.random.default_rng(14)
-    taps = jnp.asarray(gaussian_taps(5), jnp.float32)
     for shape in [(64, 128, 3), (52, 130, 4)]:
         imgs = rng.integers(0, 256, (2,) + shape, dtype=np.uint8)
-        ref = np.stack(
-            [
-                np.asarray(
-                    F.to_uint8_j(F.sep_filter_j(jnp.asarray(f), taps, taps))
-                )
-                for f in imgs
-            ]
-        )
-        out = np.asarray(
-            sep_filter_u8_planes(jnp.asarray(imgs), taps, taps, interpret=True)
-        )
-        assert (out == ref).all(), shape
+        for device, golden in _gaussian_pair(imgs):
+            assert np.abs(device.astype(int) - golden.astype(int)).max() <= 1, shape
 
 
 def test_median25_network_exhaustive_zero_one():

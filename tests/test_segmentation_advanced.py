@@ -2,7 +2,7 @@
 split/merge, clustering, grabcut, snake.
 
 Device paths of the iterative ops (while_loop flooding) are exercised on
-small fixtures; CPU<->TPU bitwise equality is the hard requirement, cv2
+small fixtures; host<->device bitwise equality is the hard requirement, cv2
 equality is asserted where the algorithm is deterministic (labeling,
 distance, flood fill) and structurally elsewhere (level-synchronous
 watershed vs cv2's FIFO flooding).
@@ -83,34 +83,28 @@ def test_distance_transform_matches_cv2(gray):
         (64, 96),
         (100, 130),
         (8, 128),
-        # >=1024-wide shapes take the sublane-chunked forward kernel
-        # (_dt_forward_chunked, gated by _CHUNK_MIN_W) — production 2048/4096
-        # frames live on that path, so it needs its own interpret coverage,
-        # including a ragged width whose INF chunk padding must not leak
+        # production-width rows, including a ragged width
         (8, 1024),
         (10, 1030),
         (16, 2048),
     ],
 )
-def test_distance_transform_pallas_interpret_parity(shape, rng):
-    """The TPU raster-pass kernel is bit-identical to the XLA scan twin
-    (interpret mode on the CPU harness), including ragged shapes whose
-    INF padding must never leak into real pixels."""
+def test_distance_transform_matches_golden(shape, rng):
+    """The XLA row-scan chamfer is bit-identical to the numpy golden on
+    random masks with a solid band (long in-row runs), ragged widths
+    included."""
 
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.ops.distance import distance_transform_j
-    from yamimageprocessor_tpu.ops.distance_pallas import (
-        distance_transform_pallas,
+    from yamimageprocessor_tpu.ops.distance import (
+        distance_transform_j,
+        distance_transform_np,
     )
 
     mask = (rng.random(shape) > 0.6).astype(np.uint8) * 255
     mask[shape[0] // 3 : 2 * shape[0] // 3, shape[1] // 4 :] = 255
-    ref = np.asarray(distance_transform_j(jnp.asarray(mask)))
-    out = np.asarray(
-        distance_transform_pallas(jnp.asarray(mask), interpret=True)
-    )
-    assert (out == ref).all()
+    out = np.asarray(distance_transform_j(jnp.asarray(mask)))
+    assert (out == distance_transform_np(mask)).all()
 
 
 def test_watershed_device_matches_golden(bgr):

@@ -1,8 +1,8 @@
-"""Chunked D2H transfer helpers + link-probe tuning.
+"""Chunked D2H transfer helpers.
 
-TPU-runtime infrastructure with no reference counterpart (the reference
+Device-runtime infrastructure with no reference counterpart (the reference
 passes numpy buffers between steps, ``processing/pipeline_cache.py``);
-round-trip correctness and the probe's floor guarantee are what matter.
+round-trip correctness is what matters.
 """
 from __future__ import annotations
 
@@ -23,77 +23,3 @@ def test_chunked_fetch_roundtrip(shape, rng):
     np.testing.assert_array_equal(out, data)
     handle = TR.start_fetch(dev, chunk_bytes=1 << 12)
     np.testing.assert_array_equal(TR.finish_fetch(handle), data)
-
-
-def test_probe_and_tune_never_drops_below_floor(monkeypatch):
-    # env override wins and skips probing entirely
-    monkeypatch.setenv("YAM_FETCH_CHUNK_BYTES", str(8 << 20))
-    info = TR.probe_and_tune()
-    assert info["source"] == "env"
-
-    monkeypatch.delenv("YAM_FETCH_CHUNK_BYTES")
-    before = TR.CHUNK_BYTES
-    try:
-        info = TR.probe_and_tune(floor_bytes=4 << 20)
-        assert info["source"] == "probe"
-        # the tuned value never regresses below the floor, and every
-        # probed size is reported for disclosure
-        assert info["chunk_bytes"] >= 4 << 20
-        assert TR.CHUNK_BYTES == info["chunk_bytes"]
-        assert set(info["rates_MBps"]) == {4 << 20, 16 << 20, 32 << 20}
-    finally:
-        TR.CHUNK_BYTES = before
-
-
-def test_autotune_transfer_regimes(monkeypatch):
-    """Probe-driven knob sizing: relay-class links keep the tuned
-    defaults, direct-attached links shrink the stacked batch; env
-    overrides always win (operator forcing)."""
-
-    import jax
-
-    from yamimageprocessor_tpu.parallel import tiling as TI
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def fake_probe(floor_bytes=4 << 20):
-        return {"chunk_bytes": 4 << 20, "latency_ms": 28.0, "h2d_MBps": 40.0,
-                "d2h_MBps": 16.0, "source": "probe"}
-
-    monkeypatch.setattr(TI.TR, "probe_and_tune", fake_probe)
-    monkeypatch.setattr(TI, "_AUTOTUNE_RESULT", None)
-    info = TI.autotune_transfer(force=True)
-    assert info["link_class"] == "relay"
-    assert info["tile_batch"] == 8 and info["inflight"] == 3
-
-    def fast_probe(floor_bytes=4 << 20):
-        return {"chunk_bytes": 32 << 20, "latency_ms": 0.2,
-                "h2d_MBps": 12000.0, "d2h_MBps": 9000.0, "source": "probe"}
-
-    monkeypatch.setattr(TI.TR, "probe_and_tune", fast_probe)
-    info = TI.autotune_transfer(force=True)
-    assert info["link_class"] == "direct"
-    assert info["tile_batch"] == 4 and info["inflight"] == 2
-
-    # env forcing wins over the probe
-    monkeypatch.setenv("YAM_TILE_BATCH", "12")
-    monkeypatch.setenv("YAM_STREAM_INFLIGHT", "5")
-    monkeypatch.setattr(TI, "_TILE_BATCH", 12)
-    monkeypatch.setattr(TI, "_INFLIGHT", 5)
-    info = TI.autotune_transfer(force=True)
-    assert info["tile_batch"] == 12 and info["inflight"] == 5
-    # restore the module defaults for later tests
-    monkeypatch.setattr(TI, "_TILE_BATCH", 8)
-    monkeypatch.setattr(TI, "_INFLIGHT", 3)
-
-
-def test_autotune_transfer_cpu_skips():
-    from yamimageprocessor_tpu.parallel import tiling as TI
-
-    prev = TI._AUTOTUNE_RESULT
-    TI._AUTOTUNE_RESULT = None
-    try:
-        info = TI.autotune_transfer()
-        assert info.get("skipped") is True
-    finally:
-        TI._AUTOTUNE_RESULT = prev

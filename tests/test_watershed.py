@@ -1,16 +1,11 @@
-"""Pallas block-flood watershed: bit-parity with the numpy golden flood.
-
-The kernel runs in interpreter mode here (CPU CI); real-TPU parity is
-re-asserted every bench run via the segmentation.watershed case in
-``yamimageprocessor_tpu.services.parity``.
-"""
+"""Device watershed flood: bit-parity with the numpy golden flood on gray
+and color frames of awkward shapes."""
 from __future__ import annotations
 
 import numpy as np
 import pytest
 
-from yamimageprocessor_tpu.ops.watershed import watershed_np
-from yamimageprocessor_tpu.ops.watershed_pallas import flood_pallas
+from yamimageprocessor_tpu.ops.watershed import watershed_j, watershed_np
 
 
 def _scene(h, w, seed=0, blobs=3):
@@ -29,24 +24,17 @@ def _scene(h, w, seed=0, blobs=3):
     return img.astype(np.uint8), markers
 
 
-@pytest.mark.parametrize(
-    "shape,block,k",
-    [((40, 56), 16, 4), ((64, 130), 16, 8), ((33, 48), 8, 3)],
-)
-def test_flood_pallas_matches_golden(shape, block, k):
+@pytest.mark.parametrize("shape", [(40, 56), (64, 130), (33, 48)])
+def test_flood_matches_golden(shape):
     img, markers = _scene(*shape, seed=shape[0])
     golden = watershed_np(img, markers)
-    got = np.asarray(
-        flood_pallas(img, markers, block_rows=block, k_sweeps=k, interpret=True)
-    )
+    got = np.asarray(watershed_j(img, markers))
     assert (got == golden).all()
 
 
-def test_flood_pallas_color_image():
+def test_flood_color_image():
     img, markers = _scene(48, 64, seed=7)
     bgr = np.stack([img, np.roll(img, 2, 1), img], axis=-1)
     golden = watershed_np(bgr, markers)
-    got = np.asarray(
-        flood_pallas(bgr, markers, block_rows=16, k_sweeps=5, interpret=True)
-    )
+    got = np.asarray(watershed_j(bgr, markers))
     assert (got == golden).all()

@@ -1,6 +1,6 @@
-"""TPU-native microscopy image-processing framework.
+"""Microscopy image-processing framework on JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 GerryDoesStuff/YamImageProcessor (reference mounted at /root/reference):
 the preprocessing / segmentation / extraction op families compile to fused
 XLA programs over HBM-resident tile batches, the pipeline step graph and

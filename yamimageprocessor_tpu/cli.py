@@ -114,6 +114,7 @@ def cmd_batch(args) -> int:
             settings_snapshot=core.settings.snapshot(prefix="preprocess/"),
             progress=lambda pct: print(f"\r{pct:3d}%", end="", flush=True),
             batch_size=args.batch_size,
+            output_suffix=args.suffix,
         )
         print(f"\nprocessed {len(outputs)} files -> {args.output}")
         return 0
@@ -229,7 +230,7 @@ def cmd_launch(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="yamtpu", description="TPU-native microscopy image processing"
+        prog="yamtpu", description="microscopy image processing on JAX"
     )
     parser.add_argument("--settings", help="settings JSON store path")
     parser.add_argument(
@@ -252,6 +253,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output")
     p.add_argument("--stages", default="preprocessing")
     p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument(
+        "--suffix", default=".png", help="output format suffix (.png, .npy, ...)"
+    )
     p.set_defaults(fn=cmd_batch)
 
     p = sub.add_parser("extract")
@@ -285,9 +289,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        # Mosaic first-compiles cost minutes on slow compile services; the
-        # persistent cache bounds them to once per machine, so every CLI
-        # process after the first starts warm (no-op on the CPU harness).
+        # the persistent cache pays each chain's GPU compile once per cache
+        # directory, so every CLI process after the first starts warm
+        # (no-op on the CPU backend).
         from yamimageprocessor_tpu.utils.jaxcache import enable_persistent_cache
 
         enable_persistent_cache()

@@ -8,7 +8,7 @@ the signature gate, a module catalog keyed by stage with enabled flags, the
 unified PipelineManager built from module templates, update checks (pausing
 the executor while a notice is pending) and the consent-gated telemetry.
 
-TPU-native addition: the context owns the jax device view (mesh factory,
+Device addition: the context owns the jax device view (mesh factory,
 backend info) so every service shares one accelerator configuration.
 """
 from __future__ import annotations

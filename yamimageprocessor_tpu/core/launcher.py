@@ -7,7 +7,7 @@ plumbed into the configuration, a shared cross-stage controller, and the
 bootstrap → select → build-panes → run → shutdown lifecycle (including
 the "nothing selected ⇒ clean exit 0" paths).
 
-TPU redesign: the shell is headless — ``launch_stage_applications``
+Redesign: the shell is headless — ``launch_stage_applications``
 returns through a ``run`` callable that receives a ``StageSession``
 (app core + controller + instantiated panes) instead of spinning a Qt
 event loop; the CLI, tests, or any GUI shell can host the session.

@@ -9,7 +9,7 @@ pause gate (held while an update notice is pending,
 ``core/app_core.py:1156-1173``), ``cancel``/``cancel_all`` and lifecycle
 listeners feeding the diagnostics task stream.
 
-On TPU the worker threads are dispatchers: they feed device queues
+On the accelerator the worker threads are dispatchers: they feed device queues
 (jax dispatch is async), so "cancellation" means dropping pending host
 dispatch — in-flight device work completes and is discarded.
 """

@@ -138,7 +138,7 @@ class TiledImageRecord:
     def cache_token(self):
         """Content token for the device-resident streaming source cache
         (parallel/tiling.py): changes whenever the backing file changes.
-        The TPU analogue of the reference's content-addressed source ids
+        The device-side analogue of the reference's content-addressed source ids
         (``processing/pipeline_cache.py:256-282``)."""
 
         try:

@@ -11,9 +11,9 @@ framework ships it as an extension op with cv2.createCLAHE semantics:
 4. each output pixel bilinearly blends the LUTs of its 4 surrounding tile
    centers (edge-clamped).
 
-The device path evaluates the blended LUTs with the gather-free level
-sweep (per-level upsampled tile tables folded with fused multiply-adds),
-so the whole op is VPU work; per-tile histograms reuse the reshape-sum.
+The device path builds the tile histograms with one scatter-add and
+blends with four per-pixel gathers from the tile LUTs (``_blend_j``); the
+dense, mesh-sharded and streaming variants share both.
 """
 from __future__ import annotations
 
@@ -133,81 +133,48 @@ def _clip_and_lut_j(hist, clip_limit: float, area: int):
     )
 
 
-class _LruCache(dict):
-    """Bounded wrapper cache: the key embeds the CONTINUOUS clip_limit, so
-    an interactive slider would otherwise grow this without limit (each
-    entry pins O(H+W) interpolation weights plus a jit trace)."""
+def _tile_histograms_j(vals, tile_row, tile_col, gh: int, gw: int):
+    """(gh, gw, 256) int32 tile histograms by one scatter-add on
+    ``tile_id * 256 + value``; ``tile_row``/``tile_col`` give each pixel
+    row's and column's tile index."""
 
-    CAP = 32
+    import jax.numpy as jnp
 
-    def __setitem__(self, key, value):  # noqa: D105
-        if key in self:
-            del self[key]
-        super().__setitem__(key, value)
-        while len(self) > self.CAP:
-            del self[next(iter(self))]
-
-    def get(self, key, default=None):
-        if key in self:
-            value = super().pop(key)
-            super().__setitem__(key, value)
-            return value
-        return default
+    seg = (tile_row[:, None] * gw + tile_col[None, :]) * 256 + vals
+    hist = jnp.zeros((gh * gw * 256,), jnp.int32).at[seg.ravel()].add(1)
+    return hist.reshape(gh, gw, 256)
 
 
-_FAST_CACHE: dict = _LruCache()
+def _blend_j(vals, luts, y0, y1, fy, x0, x1, fx):
+    """Bilinear blend of the four surrounding tile LUTs at each pixel's own
+    level: four per-pixel gathers from the flat (gh*gw*256) table, combined
+    in the golden's f32 term order.  ``vals`` int32 (h, w); ``y*``/``x*``
+    per-row / per-column tile indices and f32 fractions."""
 
+    import jax.numpy as jnp
 
-def _clahe_fast(clip_limit: float, grid: Tuple[int, int], shape):
-    """vmap-safe single-frame fast path (pallas calls have no batching
-    rule, so batched chains map frames sequentially under the hood);
-    cached per (clip, grid, shape) so jit tracing reuses one wrapper."""
+    gw = luts.shape[1]
+    flat = luts.reshape(-1)
 
-    key = (clip_limit, grid, tuple(shape))
-    hit = _FAST_CACHE.get(key)
-    if hit is not None:
-        return hit
+    def corner(yi, xi):
+        return flat[(yi[:, None] * gw + xi[None, :]) * 256 + vals]
 
-    import jax
-
-    from yamimageprocessor_tpu.ops.clahe_pallas import (
-        clahe_blend_pallas,
-        clahe_tile_histograms,
+    fy2 = fy[:, None]
+    fx2 = fx[None, :]
+    w00 = (1 - fy2) * (1 - fx2)
+    w01 = (1 - fy2) * fx2
+    w10 = fy2 * (1 - fx2)
+    w11 = fy2 * fx2
+    out = (
+        w00 * corner(y0, x0)
+        + w01 * corner(y0, x1)
+        + w10 * corner(y1, x0)
+        + w11 * corner(y1, x1)
     )
-
-    gh, gw = grid
-    h, w = shape
-    area = (h // gh) * (w // gw)
-    interp = _interp_weights(h, w, grid)
-
-    @jax.custom_batching.custom_vmap
-    def fast(work):
-        hist = clahe_tile_histograms(work, grid).reshape(gh, gw, 256)
-        luts = _clip_and_lut_j(hist, clip_limit, area)
-        return clahe_blend_pallas(work, luts, interp, grid)
-
-    @fast.def_vmap
-    def _rule(axis_size, in_batched, work):  # noqa: ANN001
-        del axis_size, in_batched
-        if work.ndim != 3:  # nested vmap: peel one axis at a time
-            return jax.lax.map(fast, work), True
-        # whole batch in TWO kernel calls: lane-grouped CSA histograms
-        # (decode shared 8 tiles per vreg row) + one blend with a frame
-        # grid dimension, instead of 2 launches per frame
-        from yamimageprocessor_tpu.ops.clahe_pallas import (
-            clahe_tile_histograms_batch,
-        )
-
-        hist = clahe_tile_histograms_batch(work, grid)
-        luts = _clip_and_lut_j(hist, clip_limit, area)
-        return clahe_blend_pallas(work, luts, interp, grid), True
-
-    _FAST_CACHE[key] = fast
-    return fast
+    return jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
 
 
 def clahe_j(gray, *, clip_limit: float = 40.0, grid: Tuple[int, int] = (8, 8)):
-    import jax
     import jax.numpy as jnp
 
     gh, gw = grid
@@ -219,58 +186,23 @@ def clahe_j(gray, *, clip_limit: float = 40.0, grid: Tuple[int, int] = (8, 8)):
     th, tw = h // gh, w // gw
     area = th * tw
 
-    if (
-        jax.default_backend() == "tpu"
-        and th % 2 == 0
-        and tw % 2 == 0
-        and th >= 16
-        and tw >= 256
-    ):
-        # pallas fast path: CSA tile histograms + half-tile select-tree
-        # blend — same LUT math, same f32 blend order (bit parity with the
-        # sweep below); small tiles stay on the sweep (block alignment)
-        return _clahe_fast(float(clip_limit), grid, (h, w))(work)[:h0, :w0]
-
-    tiles = work.reshape(gh, th, gw, tw).astype(jnp.int32)
-
-    # per-tile histograms via the level sweep (VPU-only)
-    def hist_level(k):
-        return (tiles == k).sum(axis=(1, 3))
-
-    hist = jax.lax.map(hist_level, jnp.arange(256, dtype=jnp.int32))
-    hist = jnp.moveaxis(hist, 0, -1)  # (gh, gw, 256)
-
+    vals = work.astype(jnp.int32)
+    hist = _tile_histograms_j(
+        vals, jnp.arange(h) // th, jnp.arange(w) // tw, gh, gw
+    )
     luts = _clip_and_lut_j(hist, clip_limit, area)  # (gh, gw, 256)
 
     (y0, y1, fy), (x0, x1, fx) = _interp_weights(h, w, grid)
-    y0 = jnp.asarray(y0)
-    y1 = jnp.asarray(y1)
-    x0 = jnp.asarray(x0)
-    x1 = jnp.asarray(x1)
-    fy2 = jnp.asarray(fy, dtype=jnp.float32)[:, None]
-    fx2 = jnp.asarray(fx, dtype=jnp.float32)[None, :]
-    w00 = (1 - fy2) * (1 - fx2)
-    w01 = (1 - fy2) * fx2
-    w10 = fy2 * (1 - fx2)
-    w11 = fy2 * fx2
-
-    vals = work.astype(jnp.int32)
-
-    def upsample(table_k):
-        # (gh, gw) per-tile scalar -> (h, w) map for the four corners
-        t00 = table_k[y0][:, x0]
-        t01 = table_k[y0][:, x1]
-        t10 = table_k[y1][:, x0]
-        t11 = table_k[y1][:, x1]
-        return w00 * t00 + w01 * t01 + w10 * t10 + w11 * t11
-
-    def body(k, acc):
-        blended = upsample(luts[:, :, k])
-        return jnp.where(vals == k, blended, acc)
-
-    init = upsample(luts[:, :, 0])
-    out = jax.lax.fori_loop(1, 256, body, init)
-    out = jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
+    out = _blend_j(
+        vals,
+        luts,
+        jnp.asarray(y0, jnp.int32),
+        jnp.asarray(y1, jnp.int32),
+        jnp.asarray(fy, jnp.float32),
+        jnp.asarray(x0, jnp.int32),
+        jnp.asarray(x1, jnp.int32),
+        jnp.asarray(fx, jnp.float32),
+    )
     return out[:h0, :w0]
 
 
@@ -283,13 +215,12 @@ def clahe_sharded_j(
 ):
     """Row-sharded CLAHE, bit-identical to :func:`clahe_j`.
 
-    The CLAHE grid spans the FULL frame while shards own row bands, so per
-    grid-tile histograms are assembled with a row-projection matmul (each
-    local row's counts land in its global tile row) and psum'd over the
-    mesh (SURVEY §2.5: "global histograms [CLAHE/Otsu] become mesh
-    collectives").  LUT math is shared code; the bilinear blend gathers the
-    4 corner tables via exact one-hot selections and combines them in the
-    dense path's term order, so even f32 rounding matches.
+    The CLAHE grid spans the FULL frame while shards own row bands, so each
+    shard scatter-adds its pixels into the global (gh, gw, 256) tile
+    histograms at its rows' global tile indices, and the partial
+    histograms are psum'd over the mesh (SURVEY §2.5: "global histograms
+    [CLAHE/Otsu] become mesh collectives").  LUT math and the gather blend
+    are the dense path's own code, so even f32 rounding matches.
 
     Requires the global frame to divide evenly by the grid (no reflect
     padding across shards); the dense path handles ragged shapes.
@@ -312,72 +243,32 @@ def clahe_sharded_j(
     th, tw = H // gh, w // gw
     area = th * tw
 
-    # per-tile histogram contributions: row-projection + column reshape.
-    # Integer one-hot sum, NOT a matmul: TPU f32 matmuls run as bf16
-    # passes, which round counts above 256
-    cols = gray_block.reshape(bh, gw, tw).astype(jnp.int32)
-    grow = (idx * bh + jnp.arange(bh)) // th  # global tile row per local row
-    R = (grow[:, None] == jnp.arange(gh)[None, :]).astype(jnp.int32)
-
-    def hist_level(k):
-        per_row = (cols == k).sum(axis=2)  # (bh, gw) int32
-        return (per_row[:, None, :] * R[:, :, None]).sum(axis=0)  # (gh, gw)
-
-    hist = jax.lax.map(hist_level, jnp.arange(256, dtype=jnp.int32))
-    hist = jnp.moveaxis(hist, 0, -1)  # (gh, gw, 256) int32
+    start = idx * bh
+    vals = gray_block.astype(jnp.int32)
+    hist = _tile_histograms_j(
+        vals, (start + jnp.arange(bh)) // th, jnp.arange(w) // tw, gh, gw
+    )
     hist = jax.lax.psum(hist, axis)
-
     luts = _clip_and_lut_j(hist, clip_limit, area)
 
     # interpolation weights for ALL global rows via the SAME f64 host code
     # the dense path uses (f32-recomputed fractions differ by an ulp and
     # flip rounded outputs by 1); each shard dynamic-slices its row band
-    (y0_all, y1_all, fy_all), (x0, x1, fx_np) = _interp_weights(H, w, grid)
-    start = idx * bh
-    fy = jax.lax.dynamic_slice(
-        jnp.asarray(fy_all, dtype=jnp.float32), (start,), (bh,)
-    )
-    y0 = jax.lax.dynamic_slice(
-        jnp.asarray(y0_all, dtype=jnp.int32), (start,), (bh,)
-    )
-    y1 = jax.lax.dynamic_slice(
-        jnp.asarray(y1_all, dtype=jnp.int32), (start,), (bh,)
-    )
-    fx = jnp.asarray(fx_np, dtype=jnp.float32)
+    (y0_all, y1_all, fy_all), (x0, x1, fx) = _interp_weights(H, w, grid)
 
-    Y0 = (y0[:, None] == jnp.arange(gh)[None, :]).astype(jnp.float32)
-    Y1 = (y1[:, None] == jnp.arange(gh)[None, :]).astype(jnp.float32)
-    X0 = jnp.asarray(
-        (x0[:, None] == np.arange(gw)[None, :]).astype(np.float32)
+    def band(a, dtype):
+        return jax.lax.dynamic_slice(jnp.asarray(a, dtype), (start,), (bh,))
+
+    return _blend_j(
+        vals,
+        luts,
+        band(y0_all, jnp.int32),
+        band(y1_all, jnp.int32),
+        band(fy_all, jnp.float32),
+        jnp.asarray(x0, jnp.int32),
+        jnp.asarray(x1, jnp.int32),
+        jnp.asarray(fx, jnp.float32),
     )
-    X1 = jnp.asarray(
-        (x1[:, None] == np.arange(gw)[None, :]).astype(np.float32)
-    )
-    fy2 = fy[:, None]
-    fx2 = fx[None, :]
-    w00 = (1 - fy2) * (1 - fx2)
-    w01 = (1 - fy2) * fx2
-    w10 = fy2 * (1 - fx2)
-    w11 = fy2 * fx2
-
-    vals = gray_block.astype(jnp.int32)
-
-    def upsample(table_k):
-        # exact one-hot selections of the 4 corner tables, combined in the
-        # SAME term order as clahe_j (f32 rounding parity)
-        t00 = Y0 @ table_k @ X0.T
-        t01 = Y0 @ table_k @ X1.T
-        t10 = Y1 @ table_k @ X0.T
-        t11 = Y1 @ table_k @ X1.T
-        return w00 * t00 + w01 * t01 + w10 * t10 + w11 * t11
-
-    def body(k, acc):
-        blended = upsample(luts[:, :, k])
-        return jnp.where(vals == k, blended, acc)
-
-    init = upsample(luts[:, :, 0])
-    out = jax.lax.fori_loop(1, 256, body, init)
-    return jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +343,6 @@ def clahe_apply_from_hist_j(
     (tests/test_preprocess_ops.py::test_clahe_matches_cv2_padded).
     """
 
-    import jax
     import jax.numpy as jnp
 
     h, w = int(frame_shape[0]), int(frame_shape[1])
@@ -479,29 +369,7 @@ def clahe_apply_from_hist_j(
 
     y0, y1, fy = axis_interp(r, th, gh)
     x0, x1, fx = axis_interp(c, tw, gw)
-    fy2 = fy[:, None]
-    fx2 = fx[None, :]
-    w00 = (1 - fy2) * (1 - fx2)
-    w01 = (1 - fy2) * fx2
-    w10 = fy2 * (1 - fx2)
-    w11 = fy2 * fx2
-
-    vals = gray_tile.astype(jnp.int32)
-
-    def upsample(table_k):
-        t00 = table_k[y0][:, x0]
-        t01 = table_k[y0][:, x1]
-        t10 = table_k[y1][:, x0]
-        t11 = table_k[y1][:, x1]
-        return w00 * t00 + w01 * t01 + w10 * t10 + w11 * t11
-
-    def body(k, acc):
-        blended = upsample(luts[:, :, k])
-        return jnp.where(vals == k, blended, acc)
-
-    init = upsample(luts[:, :, 0])
-    out = jax.lax.fori_loop(1, 256, body, init)
-    return jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
+    return _blend_j(gray_tile.astype(jnp.int32), luts, y0, y1, fy, x0, x1, fx)
 
 
 __all__ = [

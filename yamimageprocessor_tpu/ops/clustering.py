@@ -4,9 +4,9 @@ Reference: ``core/segmentation.py:125-138`` (cv2.kmeans, 10 attempts,
 RANDOM_CENTERS, seeded), ``:195-207`` (skfuzzy cmeans, m=2, error 0.005,
 maxiter 1000), ``:215-235`` (sklearn GaussianMixture, full covariance).
 
-TPU-native redesign: instead of sequential attempts/iterations on the host,
-attempts are vmapped device-side (10 Lloyd runs execute in parallel on the
-chip) and EM/FCM updates are batched matrix ops that land on the MXU.
+Device redesign: instead of sequential attempts/iterations on the host,
+attempts are vmapped device-side (10 Lloyd runs execute in parallel) and
+EM/FCM updates are batched matrix ops pinned to full f32 precision.
 Seeded initial states are generated on the host from numpy RandomState so
 results are reproducible; numpy golden twins run the same arithmetic.
 cv2/sklearn/skfuzzy use their own RNGs, so cross-library equality is
@@ -74,6 +74,7 @@ def kmeans_j(data, init_u, iters: int = 10):
     lo = data.min(axis=0)
     hi = data.max(axis=0)
     inits = lo + init_u * (hi - lo)
+    exact = jax.lax.Precision.HIGHEST  # no TF32: sums of pixel values
 
     def one_attempt(centers):
         def body(_, centers):
@@ -81,7 +82,7 @@ def kmeans_j(data, init_u, iters: int = 10):
             assign = jnp.argmin(d2, axis=1)
             onehot = jax.nn.one_hot(assign, centers.shape[0], dtype=jnp.float32)
             counts = onehot.sum(0)
-            sums = onehot.T @ data
+            sums = jnp.matmul(onehot.T, data, precision=exact)
             new = sums / jnp.maximum(counts[:, None], 1.0)
             return jnp.where(counts[:, None] > 0, new, centers)
 
@@ -129,10 +130,11 @@ def fcm_j(data, u0, error: float = 0.005, maxiter: int = 1000):
 
     data = data.astype(jnp.float32)
     eps = jnp.float32(np.finfo(np.float32).eps)
+    exact = jax.lax.Precision.HIGHEST  # no TF32: compared with the f32 golden
 
     def step(u):
         um = u * u
-        cntr = (um @ data) / um.sum(axis=1)
+        cntr = jnp.matmul(um, data, precision=exact) / um.sum(axis=1)
         d = jnp.abs(data[None, :] - cntr[:, None])
         d = jnp.maximum(d, eps)
         inv = 1.0 / (d * d)
@@ -153,7 +155,7 @@ def fcm_j(data, u0, error: float = 0.005, maxiter: int = 1000):
     u, cntr, _, _ = jax.lax.while_loop(cond, body, (u1, cntr0, delta0, 1))
     # one more center pass so centers reflect the final memberships
     um = u * u
-    cntr = (um @ data) / um.sum(axis=1)
+    cntr = jnp.matmul(um, data, precision=exact) / um.sum(axis=1)
     return cntr, u
 
 
@@ -209,6 +211,7 @@ def gmm_j(data, init_means, iters: int = 50, reg: float = 1e-2):
     n, d = data.shape
     k = init_means.shape[0]
     eye = jnp.eye(d, dtype=jnp.float32)
+    exact = jax.lax.Precision.HIGHEST  # no TF32: compared with the f32 golden
 
     def log_gauss(means, covs):
         chol = jnp.linalg.cholesky(covs)  # (k, d, d)
@@ -230,10 +233,11 @@ def gmm_j(data, init_means, iters: int = 50, reg: float = 1e-2):
         resp = resp / resp.sum(axis=1, keepdims=True)
         nk = resp.sum(axis=0) + 1e-10
         weights = jnp.maximum(nk / n, 1e-8)
-        means = (resp.T @ data) / nk[:, None]
+        means = jnp.matmul(resp.T, data, precision=exact) / nk[:, None]
         diff = data[:, None, :] - means[None, :, :]
         covs = (
-            jnp.einsum("nk,nki,nkj->kij", resp, diff, diff) / nk[:, None, None]
+            jnp.einsum("nk,nki,nkj->kij", resp, diff, diff, precision=exact)
+            / nk[:, None, None]
             + reg * eye[None]
         )
         return (weights, means, covs), None

@@ -3,7 +3,7 @@
 The reference converts with cv2 (``core/preprocessing.py:54-57,74-79``);
 cv2 computes uint8 conversions in 14-bit fixed point, so we reproduce that
 arithmetic exactly in both the numpy golden path and the jnp device path —
-this is what makes downstream masks bit-identical CPU <-> TPU <-> reference.
+this is what makes downstream masks bit-identical host <-> device <-> reference.
 
 Images are channel-last BGR, matching the reference's wire convention.
 """

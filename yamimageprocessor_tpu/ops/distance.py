@@ -71,43 +71,11 @@ def distance_transform_np(binary: np.ndarray) -> np.ndarray:
     return d
 
 
-_dt_pallas_vmap = None
-
-
-def _distance_pallas_batchable():
-    global _dt_pallas_vmap
-    if _dt_pallas_vmap is None:
-        import jax
-
-        from yamimageprocessor_tpu.ops.distance_pallas import (
-            distance_transform_pallas,
-        )
-
-        @jax.custom_batching.custom_vmap
-        def one(binary):
-            return distance_transform_pallas(binary)
-
-        @one.def_vmap
-        def _rule(axis_size, in_batched, binary):  # noqa: ANN001
-            del axis_size, in_batched
-            return jax.lax.map(one, binary), True
-
-        _dt_pallas_vmap = one
-    return _dt_pallas_vmap
-
-
 def distance_transform_j(binary):
     """Device twin (bit-identical to :func:`distance_transform_np`)."""
 
     import jax
     import jax.numpy as jnp
-
-    if jax.default_backend() == "tpu":
-        # VMEM raster passes (~15x over the XLA scan at 2048^2); prefix-min
-        # networks + identical f32 adds keep it bit-identical — asserted by
-        # the interpret-mode parity test.  vmap-safe: pallas calls have no
-        # batching rule, so batched frames map sequentially
-        return _distance_pallas_batchable()(binary)
 
     h, w = binary.shape
     d0 = jnp.where(binary != 0, INF, jnp.float32(0.0))

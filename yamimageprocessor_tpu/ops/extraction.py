@@ -15,10 +15,9 @@ annotation (boxes, text) is host finalization.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import TYPE_CHECKING, Any, Dict, List
 
 import numpy as np
-import pandas as pd
 
 from yamimageprocessor_tpu.ops import color as C
 from yamimageprocessor_tpu.ops import extraction_device as XD
@@ -30,6 +29,9 @@ from yamimageprocessor_tpu.ops import threshold as T
 from yamimageprocessor_tpu.ops.labeling import label_np
 from yamimageprocessor_tpu.ops.registry import register_op
 from yamimageprocessor_tpu.utils import annotate as AN
+
+if TYPE_CHECKING:  # the DataFrame twins import pandas when called
+    import pandas as pd
 
 
 def _binary(image: np.ndarray, maxval: int = 255) -> np.ndarray:
@@ -57,6 +59,8 @@ def region_properties_extraction(image: np.ndarray) -> np.ndarray:
 
 
 def region_properties_data(image: np.ndarray) -> pd.DataFrame:
+    import pandas as pd
+
     table = XD.region_table_device(image) if XD.use_device_extraction() else None
     if table is not None and not table.get("saturated"):
         meas = table["meas"]
@@ -132,6 +136,8 @@ def hu_moments_extraction(image: np.ndarray) -> np.ndarray:
 
 
 def hu_moments_data(image: np.ndarray) -> pd.DataFrame:
+    import pandas as pd
+
     hu = _hu(image)
     return pd.DataFrame([hu], columns=[f"hu_{i + 1}" for i in range(len(hu))])
 
@@ -154,6 +160,8 @@ def lbp_extraction(image: np.ndarray, P: int = 8, R: float = 1.0) -> np.ndarray:
 
 
 def lbp_data(image: np.ndarray, P: int = 8, R: float = 1.0) -> pd.DataFrame:
+    import pandas as pd
+
     lbp_img = lbp_extraction(image, P, R)
     hist, bin_edges = np.histogram(lbp_img, bins=256, range=(0, 255))
     return pd.DataFrame({"bin": bin_edges[:-1], "count": hist})
@@ -214,6 +222,8 @@ def haralick_extraction(image: np.ndarray, distance: int = 1, angle: float = 0.0
 
 
 def haralick_data(image: np.ndarray, distance: int = 1, angle: float = 0.0):
+    import pandas as pd
+
     return pd.DataFrame([_haralick_props(image, distance, angle)])
 
 
@@ -243,6 +253,8 @@ def gabor_extraction(
 
 
 def gabor_data(image: np.ndarray, **params: Any) -> pd.DataFrame:
+    import pandas as pd
+
     filtered = gabor_extraction(image, **params)
     return pd.DataFrame(
         [{"mean": float(np.mean(filtered)), "std": float(np.std(filtered))}]
@@ -315,6 +327,8 @@ def fourier_descriptors_extraction(image: np.ndarray, num_coeff: int = 10):
 
 
 def fourier_data(image: np.ndarray, num_coeff: int = 10) -> pd.DataFrame:
+    import pandas as pd
+
     largest = _largest_contour(image)
     if largest is None:
         return pd.DataFrame()
@@ -370,6 +384,8 @@ def hog_data(
     pixels_per_cell=(8, 8),
     cells_per_block=(3, 3),
 ) -> pd.DataFrame:
+    import pandas as pd
+
     gray = C.bgr_to_gray_np(image)
     features, _ = H.hog_features_np(
         gray, int(orientations), tuple(pixels_per_cell), tuple(cells_per_block)
@@ -410,6 +426,8 @@ def histogram_stats_extraction(image: np.ndarray) -> np.ndarray:
 
 
 def histogram_data(image: np.ndarray) -> pd.DataFrame:
+    import pandas as pd
+
     if XD.use_device_extraction():
         import jax
 
@@ -443,6 +461,8 @@ def fractal_dimension_extraction(image: np.ndarray, min_box_size: int = 2):
 
 
 def fractal_data(image: np.ndarray, min_box_size: int = 2) -> pd.DataFrame:
+    import pandas as pd
+
     if XD.use_device_extraction():
         import functools
 
@@ -539,6 +559,8 @@ def approximate_shape_extraction(image: np.ndarray, error_threshold: float = 1.0
 
 
 def approximate_shape_data(image: np.ndarray, error_threshold: float = 1.0):
+    import pandas as pd
+
     rows = []
     for index, (vertices, area, perimeter, edges) in enumerate(
         _shape_records(image, error_threshold), start=1

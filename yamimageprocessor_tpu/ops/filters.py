@@ -6,7 +6,7 @@ Conventions (matching the cv2 kernels the reference calls):
   XLA's ``conv_general_dilated`` is also cross-correlation;
 * default border is BORDER_REFLECT_101 (= numpy/jnp pad mode "reflect");
   median and adaptive-threshold use BORDER_REPLICATE (= "edge");
-* float work happens in float32 (TPU-native); uint8 outputs are produced by
+* float work happens in float32; uint8 outputs are produced by
   round-half-even + saturate, i.e. cv2's ``saturate_cast<uchar>(cvRound(x))``.
 
 Integer ops (median, morphology in :mod:`.morphology`) are bit-exact between
@@ -155,10 +155,9 @@ def sep_filter_j(img, taps_y, taps_x, border: str = "reflect101"):
     work = _pad_j(img, ry, rx, border).astype(jnp.float32)
     h, w = img.shape[0], img.shape[1]
     if kx >= 13:
-        # wide kernels: every work[:, i:i+w] slice is a cross-lane shuffle
-        # on TPU (minor-dim offset), which dominates above ~13 taps — run
-        # the horizontal pass as a VERTICAL pass on the transposed frame
-        # (sublane shifts are near-free) and transpose back.  Per-element
+        # wide kernels: run the horizontal pass as a VERTICAL pass on the
+        # transposed frame (row-offset slices instead of minor-dim offset
+        # slices) and transpose back.  Per-element
         # FMA order is unchanged, so the result stays bit-identical to the
         # direct form and to the numpy twin.
         workT = jnp.swapaxes(work, 0, 1)

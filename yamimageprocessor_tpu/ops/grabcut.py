@@ -4,7 +4,7 @@ Reference: ``core/segmentation.py:237-247`` — grabCut with a 10-px-inset
 rect, 5 iterations, then foreground masking + Otsu.
 
 cv2's GrabCut alternates GMM color models with a graph min-cut.  A serial
-max-flow is a poor fit for the TPU's SPMD model, so this rebuild keeps the
+max-flow is a poor fit for a data-parallel device, so this rebuild keeps the
 same outer structure (rect init, per-side GMMs, 5 refinement rounds) but
 replaces the min-cut with checkerboard ICM sweeps over the same energy
 (data term = GMM negative log-likelihood, smoothness = contrast-weighted
@@ -131,6 +131,7 @@ def _fit_color_model_j(pixels, weights, k: int, seed: int):
     subset fit (XLA needs static shapes), so the device fit is semantically
     equivalent but not bit-identical to the host's subset fit."""
 
+    import jax
     import jax.numpy as jnp
 
     from yamimageprocessor_tpu.ops.clustering import kmeans_init_uniform
@@ -148,7 +149,7 @@ def _fit_color_model_j(pixels, weights, k: int, seed: int):
         assign = jnp.argmin(d2, axis=1)
         oh = (assign[:, None] == jnp.arange(k)[None]).astype(jnp.float32) * wcol
         counts = oh.sum(0)
-        sums = oh.T @ pixels
+        sums = jnp.matmul(oh.T, pixels, precision=jax.lax.Precision.HIGHEST)
         centers = jnp.where(
             counts[:, None] > 0, sums / jnp.maximum(counts, 1.0)[:, None], centers
         )

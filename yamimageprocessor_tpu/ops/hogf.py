@@ -199,8 +199,9 @@ def hog_visualize_j(
 ):
     """Device twin of :func:`hog_visualize_np`: out = einsum(cell hists,
     static line stamps) — lines never cross cell borders (radius <
-    cell/2), so the render is one MXU contraction plus a reshape."""
+    cell/2), so the render is one contraction plus a reshape."""
 
+    import jax
     import jax.numpy as jnp
 
     c_row, c_col = pixels_per_cell
@@ -208,7 +209,9 @@ def hog_visualize_j(
     stamps = jnp.asarray(_stamp_masks(pixels_per_cell, orientations))
     # weight<=0 bins contribute nothing (mirrors the skip in the host loop)
     weights = jnp.maximum(hist, 0.0).astype(jnp.float32)
-    cells = jnp.einsum("rcb,bij->ricj", weights, stamps)
+    cells = jnp.einsum(
+        "rcb,bij->ricj", weights, stamps, precision=jax.lax.Precision.HIGHEST
+    )
     out = cells.reshape(n_cells_row * c_row, n_cells_col * c_col)
     pad_r = shape[0] - out.shape[0]
     pad_c = shape[1] - out.shape[1]

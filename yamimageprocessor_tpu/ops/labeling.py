@@ -67,9 +67,8 @@ def _shifted(x, offset: int, axis: int, fill):
 
 def _segmented_min_both(values, run_id, axis: int, sentinel):
     """Min within contiguous runs (equal ``run_id``) along ``axis``, both
-    directions, via Hillis-Steele doubling with static shifts.  Gather-free
-    AND compile-light (the log-depth associative_scan alternative overflows
-    the TPU compile helper when nested in a while_loop)."""
+    directions, via Hillis-Steele doubling with static shifts (gather-free,
+    log-depth, static slices only)."""
 
     import jax.numpy as jnp
 
@@ -89,8 +88,8 @@ def _renumber(lab, sentinel, h: int, w: int):
     """Canonical raster-first renumbering of a converged min-flat-index
     label field: roots are component min flat indices, automatically ordered
     by raster-first occurrence.  Depends only on the PARTITION, so every
-    solver schedule (XLA Jacobi loop, Pallas Gauss-Seidel blocks, sharded
-    collective merge) lands on bit-identical labels."""
+    solver schedule (the dense Jacobi loop, the sharded collective merge)
+    lands on bit-identical labels."""
 
     import jax.numpy as jnp
 
@@ -105,101 +104,15 @@ def _renumber(lab, sentinel, h: int, w: int):
     return out.reshape(h, w).astype(jnp.int32)
 
 
-_batchable_cache: dict = {}
-
-
-def _batchable(name: str):
-    """vmap-safe wrapper around a single-frame pallas entry point
-    (pallas calls have no batching rule; batched inputs map frame by
-    frame) — one shared factory for the CC solver and the rank spreader."""
-
-    hit = _batchable_cache.get(name)
-    if hit is not None:
-        return hit
-
-    import jax
-
-    from yamimageprocessor_tpu.ops import labeling_pallas
-
-    fn = getattr(labeling_pallas, name)
-
-    @jax.custom_batching.custom_vmap
-    def one(arr):
-        return fn(arr)
-
-    @one.def_vmap
-    def _rule(axis_size, in_batched, arr):  # noqa: ANN001
-        import jax.numpy as jnp
-
-        if not in_batched[0]:
-            arr = jnp.broadcast_to(arr[None], (axis_size,) + arr.shape)
-        return jax.lax.map(one, arr), True
-
-    _batchable_cache[name] = one
-    return one
-
-
-def _cc_pallas_batchable():
-    return _batchable("cc_pallas")
-
-
-def _propagate_batchable():
-    return _batchable("propagate_pallas")
-
-
-def _rank_spread(lab, fg, h: int, w: int):
-    """Gather-free raster-first renumbering for the Pallas path: compact
-    ranks are seeded at component roots and min-propagated through
-    foreground (a second, cheap solver run) instead of the 4M-element
-    table gather ``ranks[flat]`` — measured 38 ms at 2048^2 on this link,
-    5x the whole CC solve."""
-
-    import jax.numpy as jnp
-
-    from yamimageprocessor_tpu.ops.labeling_pallas import SENTINEL
-
-    n = h * w
-    idx = jnp.arange(n, dtype=jnp.int32).reshape(h, w)
-    is_root = lab == idx  # background is SENTINEL (> any flat index)
-    rank = jnp.cumsum(is_root.ravel().astype(jnp.int32)).reshape(h, w)
-    seed = jnp.where(
-        is_root,
-        rank,
-        jnp.where(fg, jnp.int32(SENTINEL) - 1, jnp.int32(SENTINEL)),
-    )
-    spread = _propagate_batchable()(seed)
-    return jnp.where(fg, spread, 0).astype(jnp.int32)
-
-
-def label_j(fg, max_iters: int = 0):
-    """Device twin of :func:`label_np`; ``fg`` is a bool (H, W) array.
-
-    Each round does a 1-pixel 8-neighbor min (covers diagonal links) then
-    full-run row/column segmented min-scans (straight runs collapse in one
-    pass), so convergence is a few rounds for realistic masks instead of
-    O(diameter) sweeps.  Returns int32 labels, 0 = background.
-
-    On TPU the propagation runs as the Pallas block-local kernel
-    (:mod:`.labeling_pallas`): per-block VMEM solves with in-place
-    Gauss-Seidel passes and active-block skipping — same unique fixed
-    point, ~two orders of magnitude less HBM traffic than the XLA
-    doubling scans.
-    """
+def _label_solve(fg, max_iters: int = 0):
+    """Converged min-flat-index label field of the bool (H, W) ``fg`` and
+    the number of propagation rounds the loop ran (background holds the
+    sentinel ``H*W``)."""
 
     import jax
     import jax.numpy as jnp
 
     h, w = fg.shape
-
-    # an EXPLICIT iteration cap asks for possibly-unconverged output; the
-    # Pallas solver always runs to the fixed point, so honoring the cap
-    # means taking the XLA loop (keeps CPU/TPU semantics identical)
-    if max_iters <= 0 and jax.default_backend() == "tpu":
-        from yamimageprocessor_tpu.ops.labeling_pallas import cc_fits
-
-        if cc_fits(w):
-            lab = _cc_pallas_batchable()(fg)
-            return _rank_spread(lab, fg, h, w)
     n = h * w
     if max_iters <= 0:
         # the min-propagation is monotone, so n rounds is a TRUE
@@ -245,34 +158,24 @@ def label_j(fg, max_iters: int = 0):
         lab, _, it = state
         return spread(lab), lab, it + 1
 
-    lab, _, _ = jax.lax.while_loop(cond, body, (spread(lab0), lab0, jnp.int32(0)))
-    return _renumber(lab, sentinel, h, w)
+    lab, _, rounds = jax.lax.while_loop(
+        cond, body, (spread(lab0), lab0, jnp.int32(0))
+    )
+    return lab, rounds + 1
 
 
-def label_seeds_j(fg):
-    """Distinct-positive seed labels: flood-equivalent to
-    ``label_j(fg) + 1`` up to an injective relabeling (foreground
-    components get distinct positive ints, background gets 1).
+def label_j(fg, max_iters: int = 0):
+    """Device twin of :func:`label_np`; ``fg`` is a bool (H, W) array.
 
-    The watershed flood's painted output depends only on label
-    DISTINCTNESS — conflicts (``pos_min != pos_max``) and the propagated
-    unique label are invariant under any injective positive relabeling —
-    so marker construction can skip the canonical raster-first
-    renumbering (a second solver run on the Pallas path) entirely."""
-
-    import jax
-    import jax.numpy as jnp
+    Each round does a 1-pixel 8-neighbor min (covers diagonal links) then
+    full-run row/column segmented min-scans (straight runs collapse in one
+    pass), so convergence is a few rounds for realistic masks instead of
+    O(diameter) sweeps.  Returns int32 labels, 0 = background.
+    """
 
     h, w = fg.shape
-    if jax.default_backend() == "tpu":
-        from yamimageprocessor_tpu.ops.labeling_pallas import cc_fits
-
-        if cc_fits(w):
-            lab = _cc_pallas_batchable()(fg)
-            # min-flat-index labels: < h*w << 2^30, so +2 keeps them
-            # positive, distinct, and clear of the background seed 1
-            return jnp.where(fg, lab + 2, 1).astype(jnp.int32)
-    return label_j(fg) + 1
+    lab, _ = _label_solve(fg, max_iters)
+    return _renumber(lab, h * w, h, w)
 
 
-__all__ = ["label_np", "label_j", "label_seeds_j"]
+__all__ = ["label_np", "label_j"]

@@ -1,70 +1,26 @@
-"""TPU-friendly 256-entry LUT application and histograms.
+"""256-entry LUT application and histograms for uint8 images.
 
-XLA lowers per-pixel gathers (``lut[img]``) and scatter-adds
-(``zeros.at[img].add(1)``) to serialized gather/scatter loops on TPU —
-measured ~130 MPix/s on a v5e, ~100x below the elementwise roofline.  The
-VPU has no per-lane table gather, so on TPU both primitives dispatch to
-the Pallas bit-algorithm kernels in
-:mod:`yamimageprocessor_tpu.pallas_kernels` (packed-word select trees for
-the LUT, carry-save bitslice counters for the histogram — 11-17 GPix/s).
-The plain-XLA fallbacks below are 256-level compare sweeps (used when the
-pallas path is unavailable) and exact CPU formulations for the harness.
+One form on every backend, each the faster of its candidates on the H100
+(``chip_smoke.py --compare-forms``, PERF.md): a per-pixel table gather for
+the LUT, and for the histogram eight fused compare-sum passes of 32 levels
+each, which beat a 256-bin scatter-add (atomics on 256 hot bins) by ~2.4x.
 """
 from __future__ import annotations
+
 
 def apply_lut_j(img, lut):
     """``lut[img]`` for uint8 ``img``; ``lut`` is a traced (256,) array."""
 
-    import jax
     import jax.numpy as jnp
 
-    if jax.default_backend() == "cpu":
-        # CPU gathers are fast; the sweep would be 256x slower there
-        return lut[img.astype(jnp.int32)]
-
-    if jax.default_backend() == "tpu":
-        try:
-            from yamimageprocessor_tpu.pallas_kernels import lut_apply_batchable
-
-            out = lut_apply_batchable()(img, lut.astype(jnp.uint8))
-            return out.astype(lut.dtype)
-        except Exception:  # pragma: no cover - mosaic regressions
-            pass
-
-    x = img.astype(jnp.int32)
-
-    def body(k, acc):
-        return jnp.where(x == k, lut[k].astype(lut.dtype), acc)
-
-    init = jnp.broadcast_to(lut[0], x.shape).astype(lut.dtype)
-    out = jax.lax.fori_loop(1, 256, body, init)
-    return out
+    return lut[img.astype(jnp.int32)]
 
 
 def histogram256_j(img):
     """Counts per level for uint8 ``img`` -> (256,) int32."""
 
-    import jax
     import jax.numpy as jnp
 
-    if jax.default_backend() == "cpu":
-        return jnp.zeros((256,), jnp.int32).at[img.ravel().astype(jnp.int32)].add(1)
-
-    # CSA bit-plane kernel wins only when the per-call decode cost
-    # amortizes (>~2 MPix); below that the plain level sweep is faster AND
-    # avoids a multi-minute Mosaic compile on slow compile services
-    if jax.default_backend() == "tpu" and img.size >= 2 * 1024 * 1024:
-        try:
-            from yamimageprocessor_tpu.pallas_kernels import (
-                histogram256_batchable,
-            )
-
-            return histogram256_batchable()(img)
-        except Exception:  # pragma: no cover - mosaic regressions
-            pass
-
-    # chunked compare-sum: 8 fused VPU passes over the image (a lax.map
-    # over 256 levels costs 256 sequential dispatches instead)
     x = img.reshape(-1).astype(jnp.int32)
     chunks = []
     for base in range(0, 256, 32):

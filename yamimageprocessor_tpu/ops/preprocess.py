@@ -130,7 +130,7 @@ def histeq_np(image: np.ndarray) -> np.ndarray:
 def _exact_div255_f32(b):
     """Correctly-rounded (IEEE RN) float32 ``255 / b`` for positive b.
 
-    TPU's hardware divide can be 1 ulp off IEEE; the host (and cv2) divide
+    A device's fast divide can be 1 ulp off IEEE; the host (and cv2) divide
     is correctly rounded, and a 1-ulp difference in the equalization scale
     flips ``rint`` ties in the LUT.  Pick the candidate around the hardware
     quotient whose exact residual ``255 - q*b`` (Dekker two-product, exact
@@ -532,24 +532,6 @@ def noise_reduction_np(image: np.ndarray, method: str = "Gaussian", ksize: int =
 
 def noise_reduction_j(img, dyn, *, method: str = "Gaussian", ksize: int = 5):
     if method == "Gaussian":
-        import jax
-
-        if (
-            jax.default_backend() == "tpu"
-            and img.ndim in (2, 3)
-            and img.dtype == np.uint8
-        ):
-            # one VMEM pass: x-taps as lane rolls, y-taps as sublane
-            # slices, same f32 accumulation order (bit parity asserted in
-            # interpret mode).  Channel frames route channels onto the
-            # kernel's frame grid (bit-exact per-channel planes) — the XLA
-            # lane-tap fallback on BGR was the single largest piece of the
-            # BASELINE CLAHE chain (17.8 of ~40 ms at 64x1024^2).
-            from yamimageprocessor_tpu.ops.sepconv_pallas import (
-                sep_filter_u8_batchable,
-            )
-
-            return sep_filter_u8_batchable()(img, dyn["taps"], dyn["taps"])
         out = F.sep_filter_j(img, dyn["taps"], dyn["taps"])
         return F.to_uint8_j(out) if img.dtype == np.uint8 else out
     if method == "Median":
@@ -620,24 +602,9 @@ def sharpen_j(img, dyn):
 
     # the unsharp Gaussian is FIXED (sigma 3.0, 19 taps — no user sigma
     # param, core/preprocessing.py:97-100), so the taps trace as XLA
-    # constants rather than runtime operands: constant folding the tap
-    # multiplies is worth ~2.2x at 19 taps (8.3 -> 18.4 GPix/s @2048^2
-    # with the transposed horizontal pass; only `strength` stays dynamic)
+    # constants rather than runtime operands, so XLA folds the tap
+    # multiplies; only `strength` stays dynamic
     taps = jnp.asarray(K.gaussian_taps(_SHARPEN_KSIZE, _SHARPEN_SIGMA), jnp.float32)
-
-    # NOTE: the XLA path stays after a four-variant pallas A/B at 19 taps
-    # (2048^2 uint8, v5e): unrolled sepconv rows=64 2.2 GPix/s; dynamic
-    # fori_loop taps (dynamic sublane rolls) 0.10; column-blocked unrolled
-    # 0.52 (narrow strided DMAs are latency-bound); fori tap-groups with
-    # static roll-by-1 0.49 — vs 2.6 for this XLA form.  Mosaic hoists all
-    # k rolled tap planes regardless of serial value chains or VMEM
-    # write-back barriers (store-forwarded away), so scoped VMEM caps the
-    # block height at exactly the tap counts where the kernel would win,
-    # and jax.lax.optimization_barrier is unimplemented in the TC
-    # lowering.  Reassociating the taps (symmetric pairing, tap-chunk
-    # partial sums) would dodge the VMEM wall but breaks the bit-exact f32
-    # add order the golden parity contract requires.  The pallas sepconv
-    # is wired only where it wins (the small-kernel Gaussian denoise).
     blurred = F.sep_filter_j(img, taps, taps)
     if img.dtype == np.uint8:
         blurred = F.to_uint8_j(blurred)

@@ -5,8 +5,8 @@ eccentricity, solidity, extent, orientation per region).  skimage is not a
 dependency — the formulas are re-implemented:
 
 * area / centroid / bbox / central moments — one-hot matmul reductions on
-  the MXU (``np.add.at`` golden twin), the TPU-native replacement for
-  per-region python loops (and for TPU scatters, which serialize);
+  the matrix units (``np.add.at`` golden twin), replacing per-region
+  python loops;
 * orientation / eccentricity — inertia-tensor eigenvalues from central
   moments (skimage's definitions: orientation in (-pi/2, pi/2] measured
   against the row axis; eccentricity sqrt(1 - l2/l1));
@@ -181,11 +181,8 @@ def measure_j(labels, max_regions: int):
     Returns a dict of (max_regions+1,) arrays; entries past the true count
     are zero.
 
-    TPU scatters serialize per index (57 ms/MPix measured for the old
-    ``segment_sum`` formulation), so the reductions run as ONE-HOT MATMULS
-    on the MXU instead: per row-chunk, a (pixels, regions) one-hot
-    contracts against a (pixels, 7) value matrix — sub-millisecond for the
-    same frame.  Moments are accumulated relative to each region's
+    The reductions run as ONE-HOT MATMULS: per row-chunk, a (pixels,
+    regions) one-hot contracts against a (pixels, 7) value matrix.  Moments are accumulated relative to each region's
     bbox-center (known before the matmul from the row-extreme pass), so
     f32 sums keep centered-moment precision without a second pass.
     """
@@ -203,9 +200,8 @@ def row_extremes_j(labels, max_regions: int):
     * small capacities: fused broadcast-compare-select reduces over W,
       chunked by rows so nothing near (H, W, regions) materializes —
       O(H*W*capacity) lane work, the fastest shape for <=~128 lanes;
-    * large capacities: (region*H + row)-keyed segment min/max — TPU
-      scatters serialize per pixel but cost O(H*W) regardless of
-      capacity.  (At the 1024-region tier on 4096² frames the end-to-end
+    * large capacities: (region*H + row)-keyed segment min/max — O(H*W)
+      regardless of capacity.  (At the 1024-region tier on 4096² frames the end-to-end
       time is unchanged — the tier's wall is the hull wrap over 2x1025
       lanes — but the extremes stop scaling with capacity.)
     """
@@ -224,8 +220,7 @@ def row_extremes_j(labels, max_regions: int):
         # narrow window — each chunk reduces over 128 LOCAL lanes
         # (background lane 0 + a 127-label window anchored at the chunk's
         # min foreground label) and writes the window back at its offset:
-        # O(H*W*128) lane work instead of O(H*W*capacity) (or the
-        # per-pixel-serializing TPU segment scatter).  A chunk whose label
+        # O(H*W*128) lane work instead of O(H*W*capacity).  A chunk whose label
         # span overflows the window (non-raster-local layouts) reduces
         # over the full capacity via lax.cond.
         win = 128
@@ -368,9 +363,8 @@ def _measure_packed(labels, max_regions: int, extra):
 
 def _moment_sums_matmul(lab, pw, s_r, s_c, nseg: int):
     """(nseg, 7) per-region sums of [1, dr, dc, dr², dc², dr·dc, pw] via
-    chunked one-hot matmuls (MXU), dr/dc measured from the per-region
-    shift origins ``s_r``/``s_c`` (gathered per pixel by a one-hot matvec
-    — no TPU gather).
+    chunked one-hot matmuls, dr/dc measured from the per-region shift
+    origins ``s_r``/``s_c`` (gathered per pixel by a one-hot matvec).
 
     Large capacities (nseg > 256) exploit the labeler's raster-first
     numbering: the labels in a short row chunk span a narrow window, so
@@ -406,10 +400,9 @@ def _moment_sums_matmul(lab, pw, s_r, s_c, nseg: int):
     )
     ccf = jax.lax.broadcasted_iota(jnp.float32, (rows, w), 1).ravel()
 
-    # TPU dots default to bf16 operands: rounding the weight/moment values
-    # would quantize the sums (measured 1.7e-3 relative on perimeters), so
-    # these contractions pin full f32 precision — the 0/1 one-hot operand
-    # is exact either way
+    # default-precision f32 dots may round operands (bf16 / TF32): that
+    # would quantize the weight/moment sums, so these contractions pin
+    # full f32 precision — the 0/1 one-hot operand is exact either way
     hi = jax.lax.Precision.HIGHEST
 
     def _vals(onehot, sr, sc, rrf, pwc):

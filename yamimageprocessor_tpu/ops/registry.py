@@ -104,7 +104,7 @@ class OpImpl:
     #: jittable device feature kernel for extraction families whose
     #: golden_fn output is a text-annotated image: ``feature_fn(img,
     #: **static) -> array pytree`` computes the NUMBERS on the accelerator
-    #: (data_fn routes through it on TPU); the text raster stays host-side
+    #: (data_fn routes through it off the CPU); the text raster stays host-side
     feature_fn: Optional[Callable[..., Any]] = None
 
     @property

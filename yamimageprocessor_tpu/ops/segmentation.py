@@ -5,7 +5,7 @@ Reference kernels: ``core/segmentation.py:79-325``; builder mapping
 dedicated modules (threshold / edges / morphology / labeling / distance /
 watershed / growing / splitmerge / clustering / meanshift / snake /
 grabcut).  Mask-producing decisions are integer comparisons end-to-end, so
-CPU (numpy) and TPU (jnp) outputs are bit-identical; cv2 parity is asserted
+host (numpy) and device (jnp) outputs are bit-identical; cv2 parity is asserted
 in the oracle suite.
 """
 from __future__ import annotations
@@ -220,7 +220,7 @@ def watershed_seg_j(
 ):
     import jax.numpy as jnp
 
-    from yamimageprocessor_tpu.ops.labeling import label_seeds_j
+    from yamimageprocessor_tpu.ops.labeling import label_j
 
     gray = C.bgr_to_gray_j(img)
     thresh = T.binary_j(gray, T.otsu_threshold_j(gray), inverse=True)
@@ -233,9 +233,7 @@ def watershed_seg_j(
     unknown = jnp.maximum(
         sure_bg.astype(jnp.int16) - sure_fg.astype(jnp.int16), 0
     ).astype(jnp.uint8)
-    # seed labels skip the canonical renumbering: the flood's painted
-    # output is invariant under injective relabeling of markers
-    markers = label_seeds_j(sure_fg > 0)
+    markers = label_j(sure_fg > 0) + 1
     markers = jnp.where(unknown == 255, 0, markers)
     labels = W.watershed_j(img, markers)
     return W.paint_boundaries_j(img, labels)
@@ -538,7 +536,7 @@ def gmm_seg_j(img, dyn, *, components: int = 2):
     labels, _ = CL.gmm_j(X, init_means, _GMM_ITERS)
     onehot = jax.nn.one_hot(labels, components, dtype=jnp.float32)
     counts = onehot.sum(0)
-    sums = onehot.T @ X
+    sums = jnp.matmul(onehot.T, X, precision=jax.lax.Precision.HIGHEST)
     means = sums / jnp.maximum(counts[:, None], 1.0)
     lum = 0.114 * means[:, 0] + 0.587 * means[:, 1] + 0.299 * means[:, 2]
     lum = jnp.where(counts > 0, lum, 0.0)

@@ -109,6 +109,7 @@ def evolve_snake_j(energy_gx, energy_gy, inv, init_pts, iterations: int, gamma: 
     import jax.numpy as jnp
 
     h, w = energy_gx.shape
+    exact = jax.lax.Precision.HIGHEST  # no TF32: compared with the f64 golden
 
     def bilinear(field, x, y):
         x = jnp.clip(x, 0.0, w - 1.001)
@@ -132,8 +133,8 @@ def evolve_snake_j(energy_gx, energy_gy, inv, init_pts, iterations: int, gamma: 
         x, y = state
         fx = bilinear(energy_gx, x, y)
         fy = bilinear(energy_gy, x, y)
-        xn = inv @ (x + gamma * fx)
-        yn = inv @ (y + gamma * fy)
+        xn = jnp.matmul(inv, x + gamma * fx, precision=exact)
+        yn = jnp.matmul(inv, y + gamma * fy, precision=exact)
         return (
             x + MAX_PX_MOVE * jnp.tanh(xn - x),
             y + MAX_PX_MOVE * jnp.tanh(yn - y),

@@ -4,7 +4,7 @@ Reference: ``core/segmentation.py:177-193`` — recursively split a region in
 four (half floor sizes) until width/height <= min_size or std < std_thresh;
 leaves are filled with the region mean (uint8 truncation).
 
-TPU-native design: the recursion is re-expressed as a breadth-first sweep
+Device design: the recursion is re-expressed as a breadth-first sweep
 over quadtree levels.  Every pixel carries its current node rectangle
 (y0, x0, h, w); each level computes per-node mean/std in two passes with
 ``segment_sum`` over node ids (numerically safe: the variance pass subtracts

@@ -2,7 +2,7 @@
 
 Reference kernels: ``core/extraction.py:107-201,264-290``.
 
-TPU redesign highlights:
+Device redesign highlights:
 
 * the GLCM is a scatter-add over (I[p], I[p+d]) index pairs — one pass over
   the image instead of the reference's O(H*W) python double loop

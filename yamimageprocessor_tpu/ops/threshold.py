@@ -1,7 +1,7 @@
 """Threshold family: global, Otsu, adaptive (cv2 semantics).
 
 Reference: ``core/segmentation.py:79-94,140-148``.  All threshold decisions
-are integer comparisons so masks are bit-identical CPU <-> TPU.  The Otsu
+are integer comparisons so masks are bit-identical host <-> device.  The Otsu
 score is evaluated with one vectorized float32 formula shared by both paths
 (cv2 evaluates the same between-class variance in a sequential double loop —
 equal argmax except at pathological near-ties).

@@ -6,8 +6,8 @@ connectedComponents) and calls ``cv2.watershed``, painting boundary pixels
 red.
 
 cv2 floods with a per-level FIFO priority queue; the queue order makes its
-boundary placement depend on raster order at ties.  The TPU-native design
-replaces the queue with LEVEL-SYNCHRONOUS flooding, a deterministic parallel
+boundary placement depend on raster order at ties.  This design replaces
+the queue with LEVEL-SYNCHRONOUS flooding, a deterministic parallel
 fixed-point iteration:
 
   for level L in 0..255:
@@ -17,7 +17,7 @@ fixed-point iteration:
           that neighborhood's label — or becomes a boundary (-1) when its
           labeled neighbors disagree.
 
-Both paths implement the identical rule, so CPU and TPU masks are
+Both paths implement the identical rule, so host and device masks are
 bit-identical; placement can differ from cv2 by one pixel at flood-order
 ties (measured agreement is asserted in tests).  Image borders start as
 boundary, matching cv2's initialization.
@@ -105,66 +105,12 @@ def watershed_np(image: np.ndarray, markers: np.ndarray) -> np.ndarray:
     return lab
 
 
-_flood_vmap = None
-
-
-def _flood_pallas_batchable():
-    global _flood_vmap
-    if _flood_vmap is None:
-        import jax
-
-        from yamimageprocessor_tpu.ops.watershed_pallas import flood_pallas
-
-        @jax.custom_batching.custom_vmap
-        def one(image, markers):
-            return flood_pallas(image, markers)
-
-        @one.def_vmap
-        def _rule(axis_size, in_batched, image, markers):  # noqa: ANN001
-            import jax.numpy as jnp
-
-            img_b, mk_b = in_batched
-            if not img_b:
-                image = jnp.broadcast_to(image[None], (axis_size,) + image.shape)
-            if not mk_b:
-                markers = jnp.broadcast_to(
-                    markers[None], (axis_size,) + markers.shape
-                )
-            return jax.lax.map(lambda t: one(t[0], t[1]), (image, markers)), True
-
-        _flood_vmap = one
-    return _flood_vmap
-
-
-def watershed_j(image, markers):
-    """Level-synchronous flooding, device edition.
-
-    Identical fixed point to :func:`watershed_np` but restructured for the
-    chip: edge costs are hoisted out of the loop (they never change), and a
-    SINGLE while loop both stabilizes the current level and — when a sweep
-    makes no progress — jumps directly to the next ACTIVE level (the min
-    frontier cost), so the 256-level outer loop never grinds through empty
-    levels.  Every sweep is ~15 fused elementwise passes; there are no
-    gathers or scatters anywhere.
-
-    On TPU the flood runs as the Pallas block-local kernel
-    (:mod:`.watershed_pallas`): K sweeps per VMEM-resident row block with
-    K-row halos plus stable-block skipping — bit-identical trajectory,
-    ~order-of-magnitude fewer HBM passes.
-    """
+def _flood(image, markers):
+    """Level-synchronous flood of :func:`watershed_j`; returns the label
+    field and the number of sweeps the loop ran."""
 
     import jax
     import jax.numpy as jnp
-
-    if jax.default_backend() == "tpu":
-        from yamimageprocessor_tpu.ops.watershed_pallas import pallas_fits
-
-        if pallas_fits(markers.shape[-1]):
-            # vmap-safe wrapper: batched frames flood sequentially (pallas
-            # calls have no batching rule; convergence is per-frame anyway)
-            return _flood_pallas_batchable()(image, markers)
-        # frames too wide for even the minimal block/k geometry overflow
-        # the kernel's scoped VMEM — take the XLA flood below instead
 
     h, w = markers.shape
     img = image.astype(jnp.int16)
@@ -214,11 +160,11 @@ def watershed_j(image, markers):
         return new_lab, trig_cost, jnp.any(trig)
 
     def cond(state):
-        _, level = state
+        _, level, _ = state
         return level < jnp.uint16(256)
 
     def body(state):
-        lab, level = state
+        lab, level, sweeps = state
         lab, trig_cost, changed = sweep(lab, level)
         still_unknown = lab == 0
         frontier = jnp.where(still_unknown, trig_cost, big16)
@@ -228,10 +174,27 @@ def watershed_j(image, markers):
         new_level = jnp.where(
             changed, level, jnp.maximum(next_active, level + jnp.uint16(1))
         )
-        return lab, new_level
+        return lab, new_level, sweeps + 1
 
-    lab, _ = jax.lax.while_loop(cond, body, (lab0, jnp.uint16(0)))
-    return lab
+    lab, _, sweeps = jax.lax.while_loop(
+        cond, body, (lab0, jnp.uint16(0), jnp.int32(0))
+    )
+    return lab, sweeps
+
+
+def watershed_j(image, markers):
+    """Level-synchronous flooding, device edition.
+
+    Identical fixed point to :func:`watershed_np` but restructured for the
+    device: edge costs are hoisted out of the loop (they never change), and
+    a SINGLE while loop both stabilizes the current level and — when a
+    sweep makes no progress — jumps directly to the next ACTIVE level (the
+    min frontier cost), so the 256-level outer loop never grinds through
+    empty levels.  Every sweep is ~15 fused elementwise passes; there are
+    no gathers or scatters anywhere.
+    """
+
+    return _flood(image, markers)[0]
 
 
 def paint_boundaries_np(image: np.ndarray, labels: np.ndarray) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 The reference defines a ``GpuExecutor`` protocol with CPU fallback
 (``processing/pipeline_manager.py:69-73,448-465``) but ships no real
-executor; this is the TPU implementation: a step marked as requiring an
+executor; this is the device implementation: a step marked as requiring an
 accelerator executes its registered device function through the fused-chain
 compiler (single-step chain, compiled once per signature).
 """

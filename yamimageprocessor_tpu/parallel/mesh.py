@@ -1,7 +1,7 @@
 """Device mesh execution: frame-parallel and spatially-sharded pipelines.
 
 The reference has zero distributed machinery (SURVEY §2.5); its scaling
-story is spatial tiling on one host.  The TPU-native equivalents:
+story is spatial tiling on one host.  The device-mesh equivalents:
 
 * **Frame parallelism** (the batch-folder / 64-frame bench path):
   the fused chain is vmapped and the leading frame axis is sharded over the
@@ -81,7 +81,6 @@ def spatial_sharded_apply(
 
     import jax
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     axis = mesh.axis_names[0]
@@ -154,12 +153,12 @@ def spatial_sharded_apply(
                 cur = impl.device_fn(cur, dyn_j, **static)
         return cur
 
-    fn = shard_map(
+    fn = jax.shard_map(
         block_fn,
         mesh=mesh,
         in_specs=P(axis),
         out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     if jit_compile:
         fn = jax.jit(fn)

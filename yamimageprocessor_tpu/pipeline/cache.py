@@ -9,7 +9,7 @@ signature semantics:
   other objects by repr) and the same compact JSON encoding — signatures are
   byte-compatible with the reference, so cached artifacts interoperate.
 
-Execution differs TPU-style: ``compute`` finds the longest cached prefix,
+Execution differs on the device: ``compute`` finds the longest cached prefix,
 then runs the remaining suffix as ONE fused XLA program that returns every
 step output (``pipeline/compiler.py``), instead of a numpy pass per step.
 Tiled sources stream shard-by-shard, emitting ``PipelineCacheTileUpdate``

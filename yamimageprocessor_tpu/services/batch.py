@@ -6,7 +6,7 @@ supported files in a folder, run the pipeline on each, save with
 stage/mode/source-index metadata plus the pipeline dict and settings
 snapshot, report progress, honour cooperative cancel.
 
-TPU redesign: same-shape frames are grouped and executed as fused device
+Device redesign: same-shape frames are grouped and executed as fused device
 BATCHES (vmap over the leading axis, optionally sharded over a mesh)
 instead of one host pass per file — the chain compiles once per shape
 group and every chip cycle processes multiple frames.
@@ -178,10 +178,8 @@ def _probe_shape(path: Path) -> Tuple[Tuple[int, ...], str]:
 
     suffix = path.suffix.lower()
     if suffix == ".npy":
-        with open(path, "rb") as handle:
-            version = np.lib.format.read_magic(handle)
-            shape, _, dtype = np.lib.format._read_array_header(handle, version)
-        return tuple(shape), str(dtype)
+        header = np.load(path, mmap_mode="r")  # maps the file, reads no pixels
+        return tuple(header.shape), str(header.dtype)
     from PIL import Image
 
     with Image.open(path) as img:

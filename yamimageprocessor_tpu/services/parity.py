@@ -2,7 +2,7 @@
 
 The CPU test-suite asserts device==golden through the jax CPU backend; this
 module re-runs the same assertions against whatever accelerator backend is
-actually attached (Mosaic/Pallas kernels included), so every bench run
+actually attached, so every bench run
 re-verifies hardware parity (the numbers and the parity come from the same
 process).  Reference parity classes: bit-exact for integer/mask ops
 (``core/segmentation.py``), <=1 LSB for float filter ops
@@ -37,7 +37,7 @@ CASES = [
     # ksize=3 runs a different shared-column sorting network
     ("preprocessing.noise_reduction", {"method": "Median", "ksize": 3}, 0),
     # bilateral: gather-heavy range weights — exactly the class that can
-    # diverge on TPU; 1-LSB like the CPU suite (test_preprocess_ops.py)
+    # diverge on an accelerator; 1-LSB like the CPU suite (test_preprocess_ops.py)
     ("preprocessing.noise_reduction", {"method": "Bilateral", "ksize": 5}, 1),
     ("preprocessing.sharpen", {"strength": 1.0}, 1),
     ("preprocessing.select_channel", {"value": "RG"}, 0),
@@ -140,9 +140,9 @@ IOU_CASES = [
     ("segmentation.graph_cuts", {}, 0.9),
 ]
 
-# awkward geometries for the heavyweight Pallas families: block-padding /
-# alignment bugs live at shapes that are NOT lane/sublane multiples, which
-# the shared 128x160 scene never exercises on hardware.  (identifier,
+# awkward geometries for the heavyweight families: padding / alignment bugs
+# live at shapes that are NOT powers of two, which the shared 128x160 scene
+# never exercises on hardware.  (identifier,
 # params, tol, shape); tolerances follow the same classes as CASES.
 ODD_SHAPE_CASES = [
     (
@@ -283,8 +283,8 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
             failures.append(identifier)
         emit(f"{'OK ' if ok else 'FAIL'} {identifier:44s} maxdiff={diff} (tol {tol})")
 
-    # odd shapes exercise pallas block overhang (histogram padding) and the
-    # correctly-rounded f32 255/remainder divide in the equalization LUT
+    # odd shapes exercise ragged histogram sizes and the correctly-rounded
+    # f32 255/remainder divide in the equalization LUT
     histeq = get_impl("preprocessing.histogram_equalization")
     for shape in ((7, 13), (1000, 1003), (129, 255)):
         _tick()
@@ -297,9 +297,8 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
         progress[:] = [passed, total]
         emit(f"{'OK ' if diff == 0 else 'FAIL'} histeq odd shape {shape}: maxdiff={diff}")
 
-    # the CLAHE pallas fast path needs tiles >= 256 wide (clahe_j gate) —
-    # the shared 128x160 scene never reaches it, so audit it explicitly
-    # (measured bit-exact vs the f64 golden on hardware)
+    # a wide frame with 256-wide tiles: the shared 128x160 scene has tiny
+    # tiles, so audit the production tile geometry explicitly
     _tick()
     clahe = get_impl("preprocessing.clahe")
     wide = rng.integers(0, 256, (256, 2048), dtype=np.uint8)
@@ -316,10 +315,10 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
     total += 1
     passed += diff == 0
     progress[:] = [passed, total]
-    emit(f"{'OK ' if diff == 0 else 'FAIL'} clahe fast path 256x2048: maxdiff={diff}")
+    emit(f"{'OK ' if diff == 0 else 'FAIL'} clahe wide tiles 256x2048: maxdiff={diff}")
 
-    # vmapped CLAHE takes the BATCHED blend kernel (one call, frame grid
-    # dim) — audit it against the per-frame golden on hardware
+    # vmapped CLAHE (the batched chain's path) against the per-frame
+    # golden on hardware
     _tick()
     import jax as _jax
 
@@ -351,7 +350,7 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
             failures.append(name)
         emit(f"{'OK ' if ok else 'FAIL'} {name:44s} {detail}")
 
-    # ---- awkward geometries for the Pallas-heavy families
+    # ---- awkward geometries for the heavyweight families
     for identifier, params, tol, shape in ODD_SHAPE_CASES:
         _tick()
         impl = get_impl(identifier)
@@ -372,7 +371,7 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
             f"maxdiff={diff} (tol {tol})",
         )
 
-    # odd-geometry chamfer distance (raster-pass Pallas kernel)
+    # odd-geometry chamfer distance (row-scan recurrence)
     _tick()
     from yamimageprocessor_tpu.ops.distance import (
         distance_transform_j as _dist_j,
@@ -454,8 +453,7 @@ def _run_all(emit, _tick, gray, bgr, rng, jnp, get_impl, failures, progress):
     dd = np.asarray(distance_transform_j(jnp.asarray(mask)))
     check("distance_transform", bool((dg == dd).all()), "bit-exact")
 
-    # ---- connected components (Pallas block-local CC on TPU backends):
-    # a 50%-fill noise mask maximizes component count and boundary merges
+    # ---- connected components: a 50%-fill noise mask maximizes component count and boundary merges
     _tick()
     from yamimageprocessor_tpu.ops.labeling import label_j as _label_j
     from yamimageprocessor_tpu.ops.labeling import label_np as _label_np

@@ -1,6 +1,6 @@
 """Profiling / tracing hooks (SURVEY §5 tracing obligation).
 
-The reference has no profiler; the TPU build adds ``jax.profiler`` trace
+The reference has no profiler; this build adds ``jax.profiler`` trace
 capture plus lightweight per-stage wall timing surfaced through the same
 task/diagnostics stream.
 """
